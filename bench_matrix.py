@@ -1,14 +1,16 @@
 """Bench matrix: all five BASELINE.md-required configurations
-(BASELINE.md:62-66), each in its own subprocess (a TPU fault poisons the
-client process), aggregated into BENCH_MATRIX.json.
+(BASELINE.md:62-66), each run by ``bench.py`` in its own child process, one
+after another, so that one process at a time holds the GPU (this parent
+never imports JAX).  Results go to results/bench_matrix.json.
 
-  frisys       - headline: N2-size systematic HB-PP FRI (bench.py ladder)
+  frisys       - headline: real N2/cc-pVDZ systematic HB-PP FRI, 1e6 rung
   frifull_hh   - 4-site Hubbard-Holstein, exact H
-  frifull_mol  - H2O-size synthetic, exact H
-  fciqmc       - N2-stretched-size, heat-bath, 5M-walker target
-  subsp        - Ne-size 2-state subspace, hash-sharded code path
+  frifull_mol  - real H2O/cc-pVDZ (10e,12o) CAS, exact H
+  fciqmc       - real stretched N2/cc-pVDZ, heat-bath, 5M-walker target
+  subsp        - real Ne cc-pVQZ 2-state subspace, hash-sharded code path
 
 Usage: python bench_matrix.py [config ...]   (default: all)
+Exits non-zero if any configuration failed.
 """
 
 import json
@@ -22,17 +24,11 @@ ALL = ["frisys", "frifull_hh", "frifull_mol", "fciqmc", "subsp"]
 
 def main():
     want = sys.argv[1:] or ALL
-    out_path = os.path.join(HERE, "BENCH_MATRIX.json")
+    out_path = os.path.join(HERE, "results", "bench_matrix.json")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     results = {}
-    if os.path.exists(out_path):
-        with open(out_path) as f:
-            results = json.load(f)
     for name in want:
-        env = dict(os.environ)
-        env["FRIES_BENCH_CONFIG"] = name
-        env.setdefault(
-            "JAX_COMPILATION_CACHE_DIR", os.path.join(HERE, ".jax_cache")
-        )
+        env = dict(os.environ, FRIES_BENCH_CONFIG=name)
         sys.stderr.write(f"# running {name}...\n")
         proc = subprocess.run(
             [sys.executable, os.path.join(HERE, "bench.py")],
@@ -41,15 +37,18 @@ def main():
         line = next(
             (l for l in proc.stdout.splitlines() if l.startswith("{")), None
         )
-        if line:
+        if proc.returncode == 0 and line:
             results[name] = json.loads(line)
             print(line)
         else:
-            results[name] = {"error": proc.stderr[-4000:]}
+            results[name] = {"error": proc.stderr[-4000:],
+                             "returncode": proc.returncode}
             sys.stderr.write(f"# {name} FAILED\n{proc.stderr[-4000:]}\n")
         with open(out_path, "w") as f:
             json.dump(results, f, indent=1)
     sys.stderr.write(f"# wrote {out_path}\n")
+    if any("error" in r for r in results.values()):
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,13 @@
-"""fries_tpu — TPU-native stochastic full-CI framework.
+"""fries_tpu — stochastic full-CI framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of sgreene8/FRIES
+A from-scratch JAX/XLA re-design of the capabilities of sgreene8/FRIES
 (Fast Randomized Iteration for Electronic Structure): stochastic power-method
 FCI solvers (systematic/pivotal/multinomial FRI, integer and floating-point
 initiator FCIQMC, semi-stochastic deterministic subspaces, multi-state subspace
 iteration, observable estimators) for molecular Hamiltonians and the
 Hubbard-Holstein model.
 
-Design notes (TPU-first, not a port):
+Design notes (batched arrays, not a port):
 
 * Slater determinants are packed ``uint32`` word arrays plus transient unpacked
   occupancy-bit tensors (``dets.py``); popcount/parity use
@@ -18,7 +18,7 @@ Design notes (TPU-first, not a port):
   sort+segment-sum accumulation and searchsorted lookups (``runtime/arena.py``).
 * Stochastic compression (reference FRIES/compress_utils.cpp) becomes
   threshold-fixpoint preservation + prefix-sum systematic resampling, fully
-  batched with static shapes (``compress/``).
+  batched with static shapes (``compress.py``).
 * MPI collectives map to ``jax.lax`` collectives inside ``shard_map`` over a
   1-D device mesh (``runtime/shard.py``); the rank-0 broadcast of shared random
   numbers becomes using the same PRNG key on every shard.
@@ -27,19 +27,14 @@ Design notes (TPU-first, not a port):
 import jax
 
 # f64 accumulations are load-bearing for the estimator / compression math; the
-# big per-determinant tensors stay f32/int32 so the TPU hot path is native.
+# big per-determinant tensors stay f32/int32.
 jax.config.update("jax_enable_x64", True)
 
-# TPU's DEFAULT matmul precision truncates f32 operands to one bf16 pass
-# (8 mantissa bits).  Every one-hot gather-by-matmul in kernels.py and every
-# "error-free" integer-split product relies on f32 operands surviving the MXU
-# intact, and the sampling prefix sums feed inverse-CDF draws that must agree
-# with the probabilities used for value division.  Measured consequence of the
-# default (2026-08-17, TPU v5e): diag matrix elements wrong by ~1 mHa and
-# batch-shape-DEPENDENT, because XLA picks the MXU (truncating) lowering for
-# some shapes and the exact VPU lowering for others.  HIGHEST = 6-pass bf16,
-# which represents each f32 operand exactly (3x8 mantissa bits), so one-hot
-# selections and <=2^24 integer accumulations are bit-exact again.
+# f32 matrix products must not run in TF32 (about 10 mantissa bits), which a
+# GPU may pick for the DEFAULT precision: f32 weights feed the inverse-CDF
+# draws, whose prefix sums must agree with the probabilities used for value
+# division, and f32 products carry counts that must stay exact below 2^24.
+# HIGHEST keeps every f32 product in full f32.
 jax.config.update("jax_default_matmul_precision", "highest")
 
 __version__ = "0.1.0"

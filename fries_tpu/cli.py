@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -84,16 +85,22 @@ def _run_power_driver(args, step, run_steps, state, aux, protected=None):
         aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
         aux["ref_key"],
     )
+    # wall seconds per block, device work included (the first block of a
+    # run also holds the step's compilation)
+    wall = _out(result_dir, "wall.txt")
     block = min(args.save_interval, 100)
     done = 0
     while done < args.max_iter:
         n = min(block, args.max_iter - done)
         prev_state = state
+        t0 = time.perf_counter()
         if protected is not None:
             state, traj = run_steps(state, *est_args, n, protected)
         else:
             state, traj = run_steps(state, *est_args, n)
-        jax.block_until_ready(traj["norm"])
+        jax.block_until_ready((state, traj))
+        wall.write(f"{done + n},{n},{time.perf_counter() - t0!r}\n")
+        wall.flush()
         if bool(np.asarray(traj["overflow"]).any()):
             # the reference flow-controls its Adder (vec_utils.hpp:991-1019);
             # with static buffers an overflow invalidates the trajectory, so
@@ -101,7 +108,7 @@ def _run_power_driver(args, step, run_steps, state, aux, protected=None):
             checkpoint.save_state(
                 os.path.join(result_dir, "checkpoint_overflow.npz"), prev_state
             )
-            for f in files.values():
+            for f in (*files.values(), wall):
                 f.close()
             raise SystemExit(
                 "ERROR: spawn/arena buffer overflow at iteration "
@@ -138,7 +145,7 @@ def _run_power_driver(args, step, run_steps, state, aux, protected=None):
                     f"{occ['fill']:.4f},{occ['live']},{occ['nonzero']},"
                     f"{occ['zero_live']}\n"
                 )
-    for f in files.values():
+    for f in (*files.values(), wall):
         f.close()
 
 
@@ -309,6 +316,9 @@ def main(argv=None):
 
     args = parser.parse_args(argv)
     cmd = args.cmd
+
+    from fries_tpu import compile_cache
+    compile_cache.enable()
 
     if cmd == "dice_dots":
         return _dice_dots(args)

@@ -1,4 +1,4 @@
-"""Stochastic vector-compression kernels (the FRI heart), TPU-native.
+"""Stochastic vector-compression kernels (the FRI heart).
 
 Re-designs FRIES/compress_utils.{hpp,cpp} for a static-shape SPMD compiler:
 
@@ -117,9 +117,8 @@ def _preserve_threshold_seed(parts, n_samp, tot_mass, axis_name):
         if (mass is u and uf.dtype == jnp.float32 and cost is None
                 and uf.shape[0] >= 8192):
             # f32 staged rows: accumulate the 20 edge-reductions in f32
-            # tiles with an f64 outer stage (f64 VPU adds are the slow part;
-            # counts per tile < 2^24 stay exact in f32; 78.7 -> 73.4 ms per
-            # level-B-size comp_sub on v5e). Tile errors ~1e-5 relative sit
+            # tiles with an f64 outer stage (counts per tile < 2^24 stay
+            # exact in f32). Tile errors ~1e-5 relative sit
             # far inside the one-bucket (4x) backoff below; in the
             # measure-zero tie case where T_est still lands below the greedy
             # threshold, the fixpoint over-preserves - which is exact and
@@ -422,8 +421,8 @@ def piv_select_tree(key: jax.Array, p: jax.Array) -> jax.Array:
     The reference's pivotal resampling (piv_samp_serial,
     compress_utils.cpp:390-527) passes a residual element sequentially; the
     pivotal method is unbiased for ANY duel order, so a binary pairing tree
-    gives the same marginals E[sel_i] = p_i in O(log N) vectorized rounds -
-    the TPU-native formulation.  The number selected is floor(sum p) or
+    gives the same marginals E[sel_i] = p_i in O(log N) vectorized rounds.
+    The number selected is floor(sum p) or
     ceil(sum p).
 
     Returns a bool mask of selected elements.
@@ -617,7 +616,7 @@ def multi_comp(key, vals: jax.Array, keep: jax.Array, n_samp, loc_norm,
     Multinomial(n_samp, |v|/norm), value = sign * unit * count (reference
     compress_vecs_multi's two-level alias sampling, vec_utils.cpp:73-127).
 
-    TPU-native: the alias tables become a searchsorted of n_samp uniform
+    The alias tables become a searchsorted of n_samp uniform
     draws against the cumulative weight (exact multinomial); the two-level
     rank/element split becomes the shard-prefix offset.
     """
@@ -680,7 +679,7 @@ def piv_budget(key, shard_norms: jax.Array, n_samp):
 @partial(
     jax.jit,
     static_argnames=(
-        "out_size", "axis_name", "max_rounds", "emit_chunk", "pallas_emit",
+        "out_size", "axis_name", "max_rounds", "emit_chunk",
     ),
 )
 def comp_sub(
@@ -694,7 +693,6 @@ def comp_sub(
     axis_name: str | None = None,
     max_rounds: int = 64,
     emit_chunk: int = 0,
-    pallas_emit: bool | None = None,
 ):
     """One level of hierarchical compression.
 
@@ -717,9 +715,6 @@ def comp_sub(
       out_size:    static output capacity M.
       emit_chunk:  chunk the output-slot inversion over slots via lax.map
                    (bounds the (chunk, K) emission temporaries; 0 = one pass).
-      pallas_emit: force the Pallas emission kernel on/off (None = auto: on
-                   for f32 sub-weights on a TPU backend; see
-                   runtime.pallas_emit).
 
     Returns (out_vals (M,), out_parent (M,) int32, out_sub (M,) int32,
     n_out (int32 count of valid slots), overflowed (bool)).
@@ -830,44 +825,6 @@ def comp_sub(
     total = jnp.sum(counts)
     overflow = total > out_size
 
-    # ---- Pallas emission path: linear-merge parent resolution +
-    # contiguous-window row selection, no sort / no HBM gathers.
-    # OFF by default: isolated it matches the XLA emission (~24 ms at
-    # level-B flagship shapes, 2026-08-19 A/B), but inside the fused
-    # frisys step the XLA emission overlaps with neighboring phases while
-    # the sequential-grid kernel + its (N, 128) table pack cannot -
-    # in-step it measured 467 vs 358 ms/iter at the 500k rung.  Kept for
-    # forcing via FRIES_PALLAS_EMIT=1 and as the base for a parallel-grid
-    # variant (PLAN.md).
-    from fries_tpu.runtime import pallas_emit as _pemit
-
-    use_pallas = pallas_emit
-    interpret = pallas_emit == "interpret"
-    if use_pallas is None:
-        mode = _pemit.force_mode()
-        eligible = _pemit.supported(k, out_size, cdtype)
-        if mode == "interpret":
-            use_pallas, interpret = eligible, True
-        elif mode == "1":
-            from fries_tpu.runtime import pallas_merge as _pm
-
-            use_pallas = (
-                eligible
-                and jax.default_backend() == "tpu"
-                and _pm.tpu_supported()
-            )
-        else:
-            use_pallas = False
-    if use_pallas:
-        out_val, out_parent, out_sub = _pemit.emit(
-            offsets, kept_counts, g_start.astype(jnp.int32), ndiv, uniform,
-            w_sub.astype(jnp.float32), cum_parent, parent_rem,
-            values / ndiv_f, rn, unit, thr_f, w_floor, total, out_size,
-            interpret=interpret,
-        )
-        return (out_val, out_parent, out_sub,
-                jnp.minimum(total, out_size), overflow)
-
     # ---- output-slot inversion (optionally chunked over slots) ----
     col_ids = jnp.arange(k, dtype=jnp.int32)
     # one consolidated per-parent payload: a single row gather per chunk
@@ -887,21 +844,16 @@ def comp_sub(
         axis=1,
     )
     # pack payload + w_sub row into ONE per-parent row so the emission does a
-    # single row gather per chunk (gather cost on TPU is ~per row fetched,
-    # not per lane; two gathers of the same M rows cost twice one).  Only for
-    # f64 sub-weights: the f32 variant would need an f32<->f64 bitcast to
-    # carry the payload in f32 lanes, which the TPU X64 rewriter cannot lower
-    # ("bitcast-convert u64[...,8,2] not implemented"), so f32 keeps two
-    # gathers (one f64 payload row + one f32 w_sub row)
+    # single row gather per chunk.  Only for f64 sub-weights: f32 rows keep
+    # two gathers (one f64 payload row + one f32 w_sub row)
     pack_one = cdtype != jnp.float32
     if pack_one:
         packed = jnp.concatenate([payload, w_sub], axis=1)
 
     def emit(slot):
         valid = slot < total
-        # parent of each slot: offsets and slots are both ascending, so the
-        # sort-based searchsorted (one fused sort) beats the 20-round binary
-        # search under TPU gather costs
+        # parent of each slot: offsets and slots are both ascending, so one
+        # sort-based searchsorted resolves every slot
         parent = jnp.searchsorted(
             offsets, slot, side="right", method="sort"
         ).astype(jnp.int32) - 1
@@ -1020,8 +972,7 @@ def comp_sub_factored(
     fused C+D (o2, u1) stage of apply_HBPP_sys (heat_bathPP.cpp:686-992):
     P(u1 | o1) does not involve o2, so the joint conditional factorizes.
     Materializing it at the 1e6 flagship rung costs (spawn_cap, 294) rows
-    plus XLA lane-padded 3D temporaries — measured OOM on v5e (frisys.py
-    round-4 gate).  Here every (N, K) quantity is recomputed on the fly
+    plus padded 3-D temporaries.  Here every (N, K) quantity is recomputed on the fly
     from the two factors, in ``row_chunk``-row chunks when requested:
     the histogram seed, the threshold fixpoint, the per-parent emission
     bookkeeping, and the per-slot emission rows.  Recomputation is
@@ -1067,7 +1018,7 @@ def comp_sub_factored(
 
     def _rows_of(a, b, kc):
         """(C, K) joint rows from (C, E) x (C, V) factors (2-D repeat/tile:
-        no (C, E, V) lane-padded 3-D intermediate)."""
+        no (C, E, V) 3-D intermediate)."""
         w = jnp.repeat(a, v_k, axis=1) * jnp.tile(b, (1, e_k))
         if kc is not None:
             kmask = jnp.repeat(kc, v_k, axis=1) & col_v0[None, :]
@@ -1447,9 +1398,8 @@ def comp_sub_piv(
         / jnp.where(my_budget > 0, loc_norm / jnp.maximum(my_budget, 1), jnp.inf),
         1.0,
     )
-    # 2-D blocked tournament: within-row lane duels + cross-row tree - the
-    # flat (N*Kp,) tree's finalization scatters (~N*Kp elements) dominated
-    # the pivotal spawner's cost on TPU (~45 ns/scattered element)
+    # 2-D blocked tournament: within-row duels + cross-row tree - the flat
+    # (N*Kp,) tree would scatter ~N*Kp elements at finalization
     sel = piv_select_tree_2d(shard_key, p) & (my_budget > 0)
 
     flagged = keep | sel
@@ -1553,7 +1503,7 @@ def sample_alias(key, aliases, alias_probs, shape):
 def sample_categorical_rows(key, probs: jax.Array, valid: jax.Array | None = None):
     """Inverse-CDF sample one index per row of a batch of small distributions.
 
-    This is the TPU replacement for per-sample alias tables in the hierarchical
+    This replaces the per-sample alias tables in the hierarchical
     samplers: rows are short (<= n_states), so a cumsum + compare per row is
     cheaper than building tables.
     """

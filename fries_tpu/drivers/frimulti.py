@@ -10,7 +10,7 @@ heat-bath multinomial generators (ops.near_uniform) and spawns
     / min(1, |v| / sampling_unit)
 
 (frimulti_mol.cpp:351-375).  Death and systematic vector compression are the
-standard power-core steps.  TPU redesign: the per-determinant sample counts
+standard power-core steps.  Batched redesign: the per-determinant sample counts
 come from the same grid-counting kernel as systematic compression, and
 sample slots map to parents by searchsorted (as in drivers.fciqmc).
 """

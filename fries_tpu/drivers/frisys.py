@@ -143,8 +143,8 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
     # systematic fused-CD runs through compress.comp_sub_factored, which
     # recomputes the rank-1 joint on the fly (no (spawn_cap, n_elec*n_virt)
     # materialization) — active at EVERY rung.  The pivotal path still
-    # materializes the joint for comp_sub_piv, so it keeps the round-4 HBM
-    # gate (measured OOM by 0.7G with 9.8x lane-padding expansion at 1e6).
+    # materializes the joint for comp_sub_piv, so it keeps a device-memory
+    # gate on that joint's size.
     import os as _os
     _fuse_cd_max = int(_os.environ.get("FRIES_FUSE_CD_MAX_BYTES",
                                        500_000_000))
@@ -195,8 +195,8 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
         # one consolidated (C, E+W) arena payload: occ + bitcast keys,
         # fetched ONCE after the first stage and then carried through the
         # per-level metadata remaps - one row gather per level total instead
-        # of metadata remap + arena re-gather (f64 vals stay out: the TPU x64
-        # rewriter cannot lower f64<->i32 bitcasts)
+        # of metadata remap + arena re-gather (f64 vals stay out of the
+        # i32 payload)
         from jax import lax as _lax
 
         n_words = keys.shape[1]
@@ -752,7 +752,7 @@ def compute_htrial(ham: mol.MolecularHamiltonian, trial_keys, trial_vals,
     if e_ref is not None:
         hf_en = float(e_ref)
     # chunk the exact application: at production trial sizes (e.g. the
-    # ~2k-det N2 CISD trial x ~24k candidates) a single batch blows HBM
+    # ~2k-det N2 CISD trial x ~24k candidates) a single batch exhausts device memory
     chunk = max(1, min(len(tv), (1 << 22) // max(tmpl.n_doub, 1) + 1))
     w_parts, a_parts = [], []
     for s in range(0, len(tv), chunk):
@@ -869,7 +869,7 @@ def build_sharded(ham: mol.MolecularHamiltonian, cfg: FrisysConfig, seed: int,
                   mesh, init_val: float = 100.0, trial=None, init_vec=None,
                   e_ref=None, determ_keys=None):
     """Multi-chip frisys: hash-sharded arena over a 1-D mesh with all-to-all
-    spawn exchange (the TPU analogue of the reference's MPI layout,
+    spawn exchange (the device-mesh analogue of the reference's MPI layout,
     SURVEY.md section 5.8).  ``cfg`` must carry axis_name/n_shards matching
     ``mesh``; capacity and budgets are per shard / global respectively.
 

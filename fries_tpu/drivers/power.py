@@ -180,7 +180,7 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
                     w, amp, ini, dovf = ar.dedup_spawns(
                         w, amp, ini, cfg.dedup_cap)
                     ovf = ovf | dovf
-                a_c, st = ar.accumulate_best(
+                a_c, st = ar.accumulate(
                     a_c, w, amp, ini, origin_row=0, dest_row=1
                 )
                 return (
@@ -197,10 +197,10 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
             exch_overflow = jnp.bool_(False)
             flat_words = None
         else:
-            # fused-compaction keep bits: the previous step leaves dead rows
-            # (zero compressed value, not ref/protected) in place and the
-            # merge drops them here in the same kernel pass - replacing the
-            # explicit end-of-step arena.compact (vec_utils.hpp:466-478)
+            # keep bits: the previous step leaves dead rows (zero
+            # compressed value, not ref/protected) in place, and the merge
+            # below compacts them away first (the end-of-step cleanup of
+            # vec_utils.hpp:466-478)
             keep_in = dets.det_eq(a.keys, ref_key[None, :])
             if protected_keys is not None:
                 ppos_in, pfound_in = ar.lookup(a, protected_keys)
@@ -219,7 +219,7 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
 
             exch_overflow = jnp.bool_(False)
             if axis and cfg.n_shards > 1:
-                # route spawns to their owning shards over ICI
+                # route spawns to their owning shards
                 # (replaces Adder::perform_add, vec_utils.hpp:991-1019)
                 cap = cfg.exchange_cap or max(
                     1, 2 * flat_amps.shape[0] // cfg.n_shards
@@ -239,9 +239,10 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
                 )
                 flat_ini = received["ini"]
 
-            a2, stats = ar.accumulate_best(
-                a, flat_words, flat_amps, flat_ini, origin_row=0, dest_row=1,
-                keep_mask=keep_in,
+            a_live = ar.compact(a, (a.vals[0] != 0) | keep_in)
+            a2, stats = ar.accumulate(
+                a_live, flat_words, flat_amps, flat_ini, origin_row=0,
+                dest_row=1,
             )
 
         # death / cloning + combine (frisys_mol.cpp:487-496); the diagonal is

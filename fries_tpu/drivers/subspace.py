@@ -136,7 +136,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig,
 
     # H * trial (exact) for the h_mat projections (subsp_mol.cpp:258-270).
     # lowmem (subsp_mol_lowmem.cpp:439) skips the stored rows entirely and
-    # re-enumerates H|trial_i> inside each step - the TPU re-design keeps the
+    # re-enumerates H|trial_i> inside each step - the batched re-design keeps the
     # reference's memory profile but enumerates on the (small, fixed) trial
     # side instead of walking the full iterate (calc_h_dot walks the iterate,
     # molecule.cpp:667-885; the projection is identical by symmetry of H)
@@ -320,8 +320,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig,
 
         def restarted(vals):
             m = d_mat - cfg.eps * h_mat
-            # R^-1 by explicit back-substitution: TPU compiles neither f64
-            # LuDecomposition nor f64 TriangularSolve (invr_inplace,
+            # R^-1 by explicit back-substitution (invr_inplace,
             # lapack_wrappers.cpp:90-179)
             rinv = linalg.inv_r_factor(m)
             new_vals = jnp.einsum("kj,kc->jc", rinv, vals)
@@ -337,7 +336,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig,
         # default, vec_utils.cpp:10-71; sys and two-level multinomial
         # variants selectable).  vmapped over the trial rows: one traced
         # pipeline regardless of n_trial (the unrolled loop made compile
-        # time grow superlinearly with T, PLAN.md round-3 item 4) ----
+        # time grow superlinearly with T) ----
         vrows = jnp.where(a.valid[None, :], a.vals, 0.0)
         krows = jax.vmap(lambda j: jax.random.fold_in(key_iter, 100 + j))(
             jnp.arange(t)
@@ -434,7 +433,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig,
         death = 1 - cfg.eps * arena_diag
         dvals = jnp.where(a.valid[None, :], a.vals * death[None, :], 0.0)
         a = ar.Arena(a.keys, dvals, a.n_used)
-        a2, stats = ar.accumulate_multi_best(a, sw, sa, sr, si)
+        a2, stats = ar.accumulate_multi(a, sw, sa, sr, si)
         overflow |= stats["overflow"]
 
         metrics = {
@@ -474,7 +473,8 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig,
 def build_sharded(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig,
                   trial_keys, trial_vals, seed: int, mesh, e_ref=None):
     """Hash-sharded subspace iteration over a 1-D mesh (BASELINE.md requires
-    subsp_mol sharded; the TPU analogue of the reference's MPI layout).
+    subsp_mol sharded; the device-mesh analogue of the reference's MPI
+    layout).
     ``cfg.capacity`` is per shard; budgets are global."""
     from fries_tpu import parallel
 

@@ -1,162 +1,98 @@
-"""TPU micro-kernel helpers: lane-axis prefix sums and small-table gathers.
+"""Small indexing and reduction helpers shared by the samplers.
 
-XLA's generic lowerings of three patterns measured catastrophically slow on
-TPU v5e at production sizes (see PLAN.md round-2 profiling):
-
-* cumsum along the lane (minor) axis of an (S, K) array: ~100 ms at
-  (7e5, 56) - lowered sequentially.  -> :func:`row_cumsum`: a (K, K)
-  triangular-ones matmul on the MXU (one pass).
-* elementwise gathers from tiny tables (``table[idx]`` with |table| <= 64):
-  ~1-2 s for 1e7 lookups (~100 cycles/element on the scalar path).
-  -> :func:`take_small` / :func:`take2_small`: fused one-hot compare-reduce
-  (|table| VPU ops per element, no materialized intermediate), and
-  :func:`take_rows_small`: one-hot MXU matmul with an f32 hi/lo split that
-  preserves f64 table values exactly (one-hot rows select single entries, so
-  the split reconstructs without accumulation error).
-* in-row selects ``take_along_axis(rows, j, axis=-1)``: same scalar-gather
-  path.  -> :func:`take_along_small`: in-row one-hot reduce.
-
-These replace the reference's scalar C loops (which are cheap on CPU) with
-the forms the TPU vector/matrix units actually execute well.
+Each helper is the plain XLA form of its operation (gather, scatter, cumsum,
+f64 matmul), with the out-of-range convention the samplers rely on: an index
+outside ``[0, size)`` - negative ones included - reads 0 instead of wrapping
+or clamping.  Padding slots carry such indices (``n_orb``, ``K``, ``-1``), so
+they contribute nothing downstream.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import jax
 import jax.numpy as jnp
-from jax import lax
 
 
-def row_cumsum(x: jax.Array, exclusive: bool = False) -> jax.Array:
-    """Cumulative sum along the last (short) axis via a triangular matmul.
+def _in_range(idx: jax.Array, size: int) -> jax.Array:
+    """``idx`` with every entry outside [0, size) moved to ``size``, which a
+    fill-mode gather reads as 0 (plain JAX indexing wraps negatives)."""
+    idx = idx.astype(jnp.int32)
+    return jnp.where((idx >= 0) & (idx < size), idx, size)
 
-    Accumulates in f32 - exact for rank counts and ample for normalized
-    sub-weight rows (K <= ~64).  Returns f32; cast at the call site.
+
+def _batch_iotas(lead: tuple, out_ndim: int) -> tuple:
+    """Index arrays selecting every position of the leading dims ``lead``,
+    right-aligned against an ``out_ndim``-dim broadcast result (size-1 dims
+    broadcast as index 0)."""
+    off = out_ndim - len(lead)
+    idx = []
+    for a, n in enumerate(lead):
+        shape = [1] * out_ndim
+        shape[off + a] = n
+        idx.append(jnp.arange(n, dtype=jnp.int32).reshape(shape)
+                   if n > 1 else jnp.zeros(shape, jnp.int32))
+    return tuple(idx)
+
+
+def row_cumsum(x: jax.Array) -> jax.Array:
+    """Inclusive f32 cumulative sum along the last (short) axis.
+
+    Exact for rank counts (< 2^24); f32 rounding for normalized weight rows.
+    Returns f32; cast at the call site.
     """
-    k = x.shape[-1]
-    tri = jnp.asarray(
-        np.triu(np.ones((k, k), np.float32), 1 if exclusive else 0)
-    )
-    return lax.dot_general(
-        x.astype(jnp.float32),
-        tri,
-        (((x.ndim - 1,), (0,)), ((), ())),
-        precision=lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32,
-    )
+    return jnp.cumsum(x.astype(jnp.float32), axis=-1)
 
 
 def take_small(table: jax.Array, idx: jax.Array) -> jax.Array:
-    """``table[idx]`` for a tiny 1-D table via fused one-hot compare-reduce.
-
-    Preserves the table dtype (f64 stays f64 - the reduce selects exactly
-    one entry per output).
-    """
+    """``table[idx]`` for a small 1-D table; out-of-range indices read 0."""
     t = table.shape[0]
-    oh = idx[..., None] == jnp.arange(t, dtype=jnp.int32)
-    # pin the reduce dtype: jnp.sum would promote i32 -> i64 under x64,
-    # dragging 64-bit one-hots through every consumer (exact regardless -
-    # the reduce selects one entry)
-    return jnp.sum(jnp.where(oh, table, 0), axis=-1, dtype=table.dtype)
+    return table.at[_in_range(idx, t)].get(mode="fill", fill_value=0)
 
 
 def take2_small(table: jax.Array, i: jax.Array, j: jax.Array) -> jax.Array:
-    """``table[i, j]`` for a tiny 2-D table: row select by matmul, then
-    in-row one-hot reduce.  ``i`` and ``j`` broadcast; output shape is the
-    broadcast of the two."""
-    rows = take_rows_small(table, i)  # i.shape + (T2,)
+    """``table[i, j]`` for a small 2-D table; out-of-range pairs read 0.
+
+    When ``j`` has more dims than ``i``, ``i`` indexes the leading ones;
+    otherwise ``i`` and ``j`` broadcast as usual."""
     if j.ndim > i.ndim:
-        rows = jnp.expand_dims(rows, tuple(range(i.ndim, j.ndim)))
-    return take_along_small(rows, j)
+        i = i.reshape(i.shape + (1,) * (j.ndim - i.ndim))
+    t1, t2 = table.shape
+    return table.at[_in_range(i, t1), _in_range(j, t2)].get(
+        mode="fill", fill_value=0)
 
 
 def take_rows_small(table: jax.Array, idx: jax.Array) -> jax.Array:
-    """Row gather ``table[idx]`` from a small (T, C) table via a one-hot MXU
-    matmul.  An f32 hi/lo split keeps f64 entries to ~2^-48 relative."""
+    """Row gather ``table[idx]`` from a small (T, C) table: shape
+    ``idx.shape + (C,)``; out-of-range rows read 0."""
     t = table.shape[0]
-    oh = (idx[..., None] == jnp.arange(t, dtype=jnp.int32)).astype(jnp.float32)
-    oh_flat = oh.reshape(-1, t)
-    out_shape = idx.shape + table.shape[1:]
-    # HIGHEST is load-bearing on TPU: the one-hot rows are exact in bf16 but
-    # the table values are not, and the DEFAULT single-bf16-pass MXU lowering
-    # would truncate them to 8 mantissa bits before the select.
-    mm = lambda a, b: jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
-    if table.dtype == jnp.float64:
-        hi32 = table.astype(jnp.float32)
-        lo32 = (table - hi32.astype(jnp.float64)).astype(jnp.float32)
-        out = mm(oh_flat, hi32).astype(jnp.float64) + mm(
-            oh_flat, lo32
-        ).astype(jnp.float64)
-    else:
-        out = mm(oh_flat, table.astype(jnp.float32)).astype(table.dtype)
-    return out.reshape(out_shape)
+    return table.at[_in_range(idx, t)].get(mode="fill", fill_value=0)
 
 
 def take_along_small(rows: jax.Array, j: jax.Array) -> jax.Array:
-    """``rows[..., j]`` in-row select (j broadcasts against rows[..., :-1])
-    via one-hot reduce; replaces take_along_axis on the lane axis."""
+    """``rows[..., j]`` in-row select: ``j`` broadcasts against
+    ``rows[..., 0]`` and the result has the broadcast shape; out-of-range
+    ``j`` reads 0.  The leading dims of ``rows`` are indexed, not
+    materialized at the broadcast shape."""
     k = rows.shape[-1]
-    oh = j[..., None] == jnp.arange(k, dtype=jnp.int32)
-    return jnp.sum(jnp.where(oh, rows, 0), axis=-1, dtype=rows.dtype)
+    out_ndim = len(jnp.broadcast_shapes(rows.shape[:-1], j.shape))
+    lead = _batch_iotas(rows.shape[:-1], out_ndim)
+    return rows.at[lead + (_in_range(j, k),)].get(mode="fill", fill_value=0)
 
 
-def count_matmul_f64(counts: jax.Array, table: jax.Array,
-                     n_splits: int = 5) -> jax.Array:
-    """``counts @ table`` with f64-accurate results on the f32 MXU.
-
-    TPU has no f64 matmul (XLA emulates it scalar-slow).  For small-integer
-    ``counts`` (occupancy vectors, values in 0..~4) the Ozaki-style
-    error-free split applies: write table = sum_i 2^(-12 i) * T_i with T_i
-    integer-valued f32 chunks; every product count * T_i and every K-term
-    accumulation stays below 2^24, so each f32 matmul is EXACT and the f64
-    recombination loses nothing beyond the 12*n_splits-bit truncation of the
-    table (~2^-60 relative at the default 5 splits).
-
-    Args:
-      counts: (..., K) f32/f64 with small nonnegative integer values.
-      table:  (K, N) f64.
-    Returns (..., N) f64.
-    """
-    c32 = counts.astype(jnp.float32)
-    scale = jnp.exp2(
-        jnp.ceil(jnp.log2(jnp.maximum(jnp.max(jnp.abs(table)), 1e-300)))
-    )
-    rem = table / scale  # |rem| <= 1
-    out = jnp.zeros(counts.shape[:-1] + (table.shape[1],), jnp.float64)
-    for i in range(n_splits):
-        chunk = jnp.round(rem * (1 << 12))
-        rem = rem * (1 << 12) - chunk
-        part = lax.dot_general(
-            c32, chunk.astype(jnp.float32),
-            (((c32.ndim - 1,), (0,)), ((), ())),
-            # HIGHEST (6-pass bf16) keeps the 12-bit integer chunks exact on
-            # the MXU; DEFAULT truncates them to 8 mantissa bits, which
-            # measured as ~1 mHa, batch-shape-dependent diagonal errors.
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )
-        out = out + part.astype(jnp.float64) * (
-            scale * 2.0 ** (-12 * (i + 1))
-        )
-    return out
+def count_matmul_f64(counts: jax.Array, table: jax.Array) -> jax.Array:
+    """``counts @ table`` in f64: (..., K) occupancy counts against a
+    (K, N) table, returned as (..., N) f64."""
+    return jnp.matmul(counts.astype(jnp.float64), table.astype(jnp.float64))
 
 
 def rank_place(values: jax.Array, mask: jax.Array, n_out: int,
                fill) -> jax.Array:
-    """Dense packing along the last axis without a scatter: output slot r
-    holds ``values[..., b]`` where b is the r-th True of ``mask``; missing
-    slots get ``fill``.
-
-    Replaces the scatter-by-rank pattern (out.at[rank].set(values)) whose
-    TPU lowering is scalar; this is a rank compare-reduce (K ops per output
-    slot, fused) fed by a matmul prefix sum.
-    """
-    rank = row_cumsum(mask).astype(jnp.int32) - 1  # inclusive rank
-    r = jnp.arange(n_out, dtype=jnp.int32)
-    hit = mask[..., None, :] & (rank[..., None, :] == r[:, None])
-    found = jnp.any(hit, axis=-1)
-    out = jnp.sum(
-        jnp.where(hit, values[..., None, :], 0), axis=-1, dtype=values.dtype
-    )
-    return jnp.where(found, out, fill).astype(values.dtype)
+    """Dense packing along the last axis: output slot r holds
+    ``values[..., b]`` where b is the r-th True of ``mask``; missing slots
+    get ``fill``, and Trues past ``n_out`` are dropped."""
+    rank = jnp.cumsum(mask, axis=-1, dtype=jnp.int32) - 1
+    dest = jnp.where(mask, rank, n_out)
+    lead = values.shape[:-1]
+    out = jnp.full(lead + (n_out,), fill, values.dtype)
+    idx = tuple(ix[..., None] for ix in _batch_iotas(lead, len(lead)))
+    return out.at[idx + (dest,)].set(values, mode="drop")

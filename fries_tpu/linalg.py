@@ -42,10 +42,8 @@ def inv(mat):
 def inv_triangular_upper(mat):
     """Inverse of an upper-triangular matrix by explicit back-substitution.
 
-    Unrolled over the (static, <= ~10) trial count: TPU implements neither
-    f64 LuDecomposition nor f64 TriangularSolve, so jnp.linalg.inv /
-    jsl.solve_triangular fail to compile inside the jitted subspace step;
-    plain elementwise ops + tiny matvecs lower everywhere."""
+    Unrolled over the (static, <= ~10) trial count: plain elementwise ops +
+    tiny matvecs inside the jitted subspace step."""
     t = mat.shape[0]
     if t == 1:
         return 1.0 / mat
@@ -79,7 +77,7 @@ def lanczos_ground_state(matvec, dim: int, m: int = 80, v0=None,
     returned lowest Ritz value is reliable to ~machine precision for
     well-separated ground states.  Used by the production-scale accuracy
     anchor (tools/anchor_scale.py) where the FCI space is too large for the
-    dense cross-checks in tests/dense_fci.py but H*v is cheap on the TPU.
+    dense cross-checks in tests/dense_fci.py but H*v is cheap on the device.
     Returns (e0, ritz_vector_in_original_basis).
     """
     rng = np.random.default_rng(seed)

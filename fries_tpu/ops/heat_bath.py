@@ -1,6 +1,7 @@
 """Heat-bath Power-Pitzer (HB-PP) factorized Hamiltonian compression.
 
-Re-designs FRIES/Hamiltonians/heat_bathPP.{hpp,cpp} for TPU: the five-level
+Re-designs FRIES/Hamiltonians/heat_bathPP.{hpp,cpp} for batched arrays: the
+five-level
 hierarchical sampling of double excitations (single-vs-double -> o1 -> o2 ->
 u1 -> u2, apply_HBPP_sys heat_bathPP.cpp:686-992) becomes five batched
 ``comp_sub`` rounds over statically-shaped sample buffers.  Per-sample scalar
@@ -10,8 +11,8 @@ tables are unnecessary because compression itself does the selection.
 
 Tensor conventions (setup, heat_bathPP.cpp:15-179): all tables are indexed by
 *unfrozen spatial* orbitals and stored dense-square (the reference's
-triangular packing trades memory for scalar indexing; dense gathers win on
-TPU):
+triangular packing trades memory for scalar indexing; batched code gathers
+from dense tables):
 
   d_diff[i, j]  = sum_{a != i, b != j} |<i j | a b>|        (opposite spin)
   d_same[i, j]  = sum_{b < a; a,b not in {i,j}} 2 |<i j|a b> - <i j|b a>|
@@ -233,8 +234,7 @@ def u2_probs(tens: HeatBathTensors, n_orb, symm, lookup, o1_orb, o2_orb,
 
 def dets_read(occ_bits, pos, n_bits):
     """Read bit ``pos`` from unpacked occupancy bits (B, n_bits); positions
-    broadcast (B, K).  In-row one-hot reduce (take_along_axis on the lane
-    axis hits the scalar-gather path)."""
+    broadcast (B, K)."""
     pos = jnp.clip(pos, 0, n_bits - 1)
     return kernels.take_along_small(
         occ_bits[..., None, :], pos
@@ -273,7 +273,7 @@ def norm_weight(tens: HeatBathTensors, n_orb, n_elec, symm, lookup,
     selecting excitation (o1,o2)->(u1,u2) under the normalized HB-PP
     factorization, summed over both selection orders.
 
-    TPU-first formulation: the per-sample sums over virtual / symmetry-row
+    Batched formulation: the per-sample sums over virtual / symmetry-row
     orbitals collapse to O(1) gathers against precomputed row sums
     (exch_norms, per-irrep exch row sums) minus the occupied/excluded
     corrections - no (B, n_orb) masked reductions."""

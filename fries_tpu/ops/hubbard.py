@@ -1,4 +1,4 @@
-"""Hubbard-Holstein lattice model in the site basis, TPU-native.
+"""Hubbard-Holstein lattice model in the site basis, batched.
 
 Re-designs FRIES/Hamiltonians/hub_holstein.{hpp,cpp} and FRIES/hh_vec.hpp:
 

@@ -1,7 +1,7 @@
 """Near-uniform symmetry-adapted excitation sampling, batched per attempt.
 
 Re-designs FRIES/Hamiltonians/near_uniform.cpp (Booth et al. 2014 section
-5.2) for TPU: the per-walker rejection/search loops (_doub_choose_virt1
+5.2) for batched arrays: the per-walker rejection/search loops (_doub_choose_virt1
 near_uniform.cpp:91-170, _sing_choose_occ :248-257) become exact masked
 rank-inversions over static orbital grids - every attempt draws directly from
 the uniform distribution over allowed choices with one uniform variate, no

@@ -8,7 +8,7 @@ vector indices via hash sharding") maps to a 1-D ``jax.sharding.Mesh``:
     capacity-padded sub-arena of the determinants it owns by hash);
   * all collectives (psum reductions, the all-to-all spawn exchange, shard-
     prefix norms for the shared systematic grid) happen inside one
-    ``shard_map``-wrapped jitted step, riding ICI;
+    ``shard_map``-wrapped jitted step;
   * scalar state (shift, PRNG key, iteration counter) is replicated - every
     shard computes identical updates from psum'd quantities, replacing the
     reference's rank-0 broadcasts.
@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from fries_tpu import dets
 from fries_tpu.drivers import power
@@ -106,13 +106,23 @@ def sharded_state(keys, vals, n_shards, capacity, seed) -> power.PowerState:
     )
 
 
+def _placer(mesh: Mesh, spec):
+    """Puts a state on the mesh with the layout the sharded step returns it
+    in, so that the first call compiles the same program as every later one
+    (a state built on one device would otherwise compile twice)."""
+    shardings = jax.tree.map(lambda p: NamedSharding(mesh, p), spec,
+                             is_leaf=lambda x: isinstance(x, P))
+    return lambda state: jax.device_put(state, shardings)
+
+
 def shard_stepper(step, run_steps, mesh: Mesh, axis: str = AXIS):
     """Wrap the jitted (step, run_steps) in shard_map over the mesh."""
     sspec = state_spec(axis)
+    place = _placer(mesh, sspec)
     repl = P()
     est_specs = (repl, repl, repl, repl, repl)  # num/den keys+vals, ref_key
 
-    sharded_step = jax.jit(
+    step_fn = jax.jit(
         jax.shard_map(
             step,
             mesh=mesh,
@@ -121,6 +131,9 @@ def shard_stepper(step, run_steps, mesh: Mesh, axis: str = AXIS):
             check_vma=False,
         )
     )
+
+    def sharded_step(state, *args):
+        return step_fn(place(state), *args)
 
     # cache the jitted scan wrappers by (n_iter, protected?): rebuilding the
     # shard_map closure per call defeats jax.jit's cache (a fresh lambda is a
@@ -159,6 +172,7 @@ def shard_stepper(step, run_steps, mesh: Mesh, axis: str = AXIS):
 
     def sharded_run(state, num_keys, num_vals, den_keys, den_vals, ref_key,
                     n_iter: int, protected=None):
+        state = place(state)
         if protected is not None:
             # semistochastic: the dense subspace is replicated; each shard
             # protects the members it owns (frisys_mol.cpp:347-401 runs the
@@ -185,12 +199,16 @@ def shard_subspace(step, run_steps, mesh: Mesh, axis: str = AXIS):
         "h_mat": P(), "d_mat": P(), "norms": P(), "norm_factors": P(),
         "n_ini": P(), "n_dets": P(), "overflow": P(),
     }
-    sharded_step = jax.jit(
+    place = _placer(mesh, sspec)
+    step_fn = jax.jit(
         jax.shard_map(
             step, mesh=mesh, in_specs=(sspec,), out_specs=(sspec, mspec),
             check_vma=False,
         )
     )
+
+    def sharded_step(state):
+        return step_fn(place(state))
 
     _cache: dict = {}
 
@@ -205,6 +223,6 @@ def shard_subspace(step, run_steps, mesh: Mesh, axis: str = AXIS):
                     check_vma=False,
                 )
             )
-        return _cache[n_iter](state)
+        return _cache[n_iter](place(state))
 
     return sharded_step, sharded_run

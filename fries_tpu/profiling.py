@@ -22,7 +22,7 @@ import jax
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Capture an XLA/TPU profiler trace viewable in XProf/TensorBoard."""
+    """Capture an XLA profiler trace viewable in XProf/TensorBoard."""
     jax.profiler.start_trace(logdir)
     try:
         yield

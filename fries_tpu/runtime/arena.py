@@ -1,6 +1,6 @@
 """Sorted capacity-padded sparse-vector arena.
 
-TPU-native replacement for the reference's hash-table distributed vector
+Replacement for the reference's hash-table distributed vector
 (DistVec + HashTable + Adder, FRIES/vec_utils.hpp:51-1048,
 FRIES/det_hash.hpp): one chip's shard of the solution vector is a fixed
 capacity struct-of-arrays *sorted by determinant key*, with
@@ -17,11 +17,10 @@ capacity struct-of-arrays *sorted by determinant key*, with
   (vec_utils.hpp:458-499).
 
 Unlike the reference's DistVec, the arena carries NO occupied-orbital or
-diagonal caches (occ_orbs_ vec_utils.hpp:134, matr_el_ :139): profiling
-showed the merge/compact scatters of those payload columns dominating the
-iteration (~350 ms of a 2 s step at 1e6 dets), while recomputing occupied
-lists and diagonals from the keys costs ~30 ms of pure vector math -
-rematerialization wins on TPU.  Drivers derive both from keys per iteration.
+diagonal caches (occ_orbs_ vec_utils.hpp:134, matr_el_ :139): every merge
+and compaction would have to move those payload columns too, while
+recomputing occupied lists and diagonals from the keys is pure vector math.
+Drivers derive both from keys per iteration.
 
 Empty slots carry the all-ones sentinel key, which sorts after every valid
 determinant, so the occupied prefix is contiguous and sorted.  All operations
@@ -129,9 +128,8 @@ def from_unsorted(arena: Arena, keys, vals) -> Arena:
 
 def _rank_select(cum_inc: jax.Array, n_out: int):
     """src[j] = index of the (j+1)-th flagged element, given the inclusive
-    cumsum of the flag vector.  Sorted queries against a sorted array: the
-    single-launch sort-method searchsorted replaces a scatter (TPU scatters
-    measured ~45 ns/element; gathers are ~10x cheaper)."""
+    cumsum of the flag vector.  Sorted queries against a sorted array, so
+    the sort-method searchsorted resolves all of them in one pass."""
     j = jnp.arange(n_out, dtype=cum_inc.dtype)
     return jnp.searchsorted(cum_inc, j + 1, side="left", method="sort")
 
@@ -262,9 +260,7 @@ def accumulate(
     r = arena.n_vecs
 
     # ---- 1. sort spawns by key; segment structure from cumsums ----
-    # (everything below is sorts, searchsorteds, cumsums, and gathers -
-    # NO scatters: TPU scatters measured ~45 ns/element, an order of
-    # magnitude over gathers, and dominated the original merge)
+    # (everything below is sorts, searchsorteds, cumsums and gathers)
     perm = _sort_perm(spawn_keys)
     skeys = spawn_keys[perm]
     svals = spawn_vals[perm]
@@ -433,83 +429,6 @@ def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
     out_keys = jnp.where(valid_u[:, None], skeys[seg_start], sentinel)
     out_ini = jnp.where(valid_u, sini[seg_start], 0).astype(jnp.bool_)
     return out_keys, out_vals, out_ini, overflow
-
-
-def accumulate_best(
-    arena: Arena,
-    spawn_keys: jax.Array,
-    spawn_vals: jax.Array,
-    spawn_ini: jax.Array,
-    origin_row: int = 0,
-    dest_row: int = 0,
-    keep_mask: jax.Array | None = None,
-):
-    """:func:`accumulate`, via the Pallas streaming-merge kernel when the
-    backend compiles it and the row layout fits (single row, or the power
-    step's origin=0/dest=1 two-row layout with packable keys); the XLA
-    sorted-merge otherwise.  Set ``FRIES_PALLAS=0`` to force the XLA path.
-
-    ``keep_mask`` enables fused compaction (drop arena rows with zero
-    origin value, a False mask bit, and no surviving spawns - see
-    ``pallas_merge.accumulate_pallas``).  The XLA fallback realizes the
-    same semantics as an explicit :func:`compact` followed by
-    :func:`accumulate`.
-
-    Default since the lane-oriented (v2) kernel landed: on-device
-    measurement (tools/bench_merge.py, 2026-08-18, 500k-rung shapes
-    C=2^20/S=7e5) has the v2 kernel at 92.3 ms vs 355.5 ms for the XLA
-    sorted-merge (3.85x), identical sums.  (The sublane-oriented v1 kernel
-    sat at XLA parity, 363 ms - one vreg lane of 128 doing work.)
-    """
-    import os
-    from fries_tpu.runtime import pallas_merge as pm
-
-    fits = (
-        (arena.n_vecs, origin_row, dest_row) in ((1, 0, 0), (2, 0, 1))
-        and dets.packable(arena.n_words)
-        # the Pallas wrapper widens both streams to 128 int32 columns
-        # (Mosaic DMA lane alignment); past ~4M spawn rows that staging
-        # buffer outgrows the win - exact-H spawn streams use XLA
-        and spawn_keys.shape[0] <= (1 << 22)
-    )
-    if fits and os.environ.get("FRIES_PALLAS", "1") != "0" and pm.tpu_supported():
-        return pm.accumulate_pallas(
-            arena, spawn_keys, spawn_vals, spawn_ini, origin_row, dest_row,
-            keep_mask=keep_mask,
-        )
-    if keep_mask is not None:
-        arena = compact(arena, (arena.vals[origin_row] != 0) | keep_mask)
-    return accumulate(
-        arena, spawn_keys, spawn_vals, spawn_ini, origin_row, dest_row
-    )
-
-
-def accumulate_multi_best(
-    arena: Arena,
-    spawn_keys: jax.Array,
-    spawn_vals: jax.Array,
-    spawn_rows: jax.Array,
-    spawn_ini: jax.Array,
-):
-    """:func:`accumulate_multi`, via the multi-row Pallas streaming-merge
-    kernel when the backend compiles it and the layout fits (packable keys,
-    <= 14 value rows, bounded spawn stream); the XLA sorted-merge otherwise.
-    Set ``FRIES_PALLAS=0`` to force the XLA path."""
-    import os
-    from fries_tpu.runtime import pallas_merge as pm
-
-    fits = (
-        arena.n_vecs <= 14
-        and dets.packable(arena.n_words)
-        and spawn_keys.shape[0] <= (1 << 22)
-    )
-    if fits and os.environ.get("FRIES_PALLAS", "1") != "0" and pm.tpu_supported():
-        return pm.accumulate_multi_pallas(
-            arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini
-        )
-    return accumulate_multi(
-        arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini
-    )
 
 
 @partial(jax.jit, static_argnames=())

@@ -1,11 +1,11 @@
 """Multi-chip sharding: hash-distributed arena + all-to-all spawn exchange.
 
-TPU-native replacement for the reference's MPI layer (SURVEY.md section 5.8):
+Replacement for the reference's MPI layer (SURVEY.md section 5.8):
 
 * rank assignment by hash (DistVec::idx_to_proc, vec_utils.hpp:360-379)
   becomes an FNV-1a hash of the determinant key words modulo the mesh size;
 * the Adder's MPI_Alltoall/MPI_Alltoallv round trip (vec_utils.hpp:991-1019)
-  becomes a fixed-capacity bucketed ``lax.all_to_all`` over the ICI mesh with
+  becomes a ragged (or fixed-capacity bucketed) all-to-all over the mesh with
   a psum'd overflow flag instead of flow control;
 * ``sum_mpi`` reductions are ``lax.psum``; the rank-0 broadcast of shared
   random numbers (compress_utils.cpp:291) is replaced by using the same PRNG
@@ -43,18 +43,20 @@ def shard_of_words(words: jax.Array, n_shards: int, seed: int = 0) -> jax.Array:
 
 import os
 
-_EXCHANGE_MODE = os.environ.get("FRIES_EXCHANGE", "ragged")
+_EXCHANGE_MODE = os.environ.get("FRIES_EXCHANGE", "dense")
 
 
 def exchange(arrays: dict, target: jax.Array, n_shards: int,
              per_pair_cap: int, axis_name: str):
     """Route spawn rows to their owning shards.
 
-    Dispatches to the ragged-collective path (actual counts on the wire,
-    overflow only if a shard *receives* more than its buffer) unless
-    FRIES_EXCHANGE=dense selects the fixed-bucket ``lax.all_to_all``
-    fallback (which also overflows when any single (src, dst) bucket
-    exceeds per_pair_cap).
+    The fixed-bucket ``lax.all_to_all`` path (overflows when any single
+    (src, dst) bucket exceeds per_pair_cap) is the default, on GPUs and on
+    the CPU: on four H100s, ``lax.ragged_all_to_all`` returned wrong rows
+    in a repeated production-shape exchange (see PERF.md), and over NVLink
+    the dense buffers cost little.  FRIES_EXCHANGE=ragged selects the
+    ragged-collective path (actual counts on the wire, overflow only if a
+    shard *receives* more than its buffer).
 
     Args:
       arrays: dict of (S, ...) spawn payloads; must contain "keys" (S, W)
@@ -65,7 +67,7 @@ def exchange(arrays: dict, target: jax.Array, n_shards: int,
 
     Returns (received dict of (n_shards*per_pair_cap, ...), overflow bool).
     """
-    if _EXCHANGE_MODE != "dense" and hasattr(lax, "ragged_all_to_all"):
+    if _EXCHANGE_MODE == "ragged":
         return exchange_ragged(arrays, target, n_shards,
                                n_shards * per_pair_cap, axis_name)
     return exchange_dense(arrays, target, n_shards, per_pair_cap, axis_name)
@@ -73,9 +75,9 @@ def exchange(arrays: dict, target: jax.Array, n_shards: int,
 
 def exchange_ragged(arrays: dict, target: jax.Array, n_shards: int,
                     recv_cap: int, axis_name: str):
-    """Ragged spawn exchange: only live rows travel the ICI.
+    """Ragged spawn exchange: only live rows travel between devices.
 
-    The TPU-native Adder (vec_utils.hpp:991-1019): rows are sorted by
+    The device-mesh Adder (vec_utils.hpp:991-1019): rows are sorted by
     destination so each shard's sends are contiguous runs, per-pair counts
     are all_gathered (n_shards^2 ints — negligible), and one
     ``lax.ragged_all_to_all`` moves exactly the live payload.  Received
@@ -163,18 +165,15 @@ def _ragged_all_to_all_emulated(operand, output, input_offsets, send_sizes,
 
 def exchange_dense(arrays: dict, target: jax.Array, n_shards: int,
                    per_pair_cap: int, axis_name: str):
-    """Fixed-bucket exchange fallback (original path): pads every
-    (src, dst) bucket to ``per_pair_cap`` and moves the dense buffer with
-    ``lax.all_to_all``."""
+    """Fixed-bucket exchange: pads every (src, dst) bucket to
+    ``per_pair_cap`` and moves the dense buffer with ``lax.all_to_all``."""
     s = target.shape[0]
     keys = arrays["keys"]
     valid = ~dets.is_invalid(keys)
     target = jnp.where(valid, target, n_shards)  # invalid -> dropped bucket
 
     # sort rows by destination; bucket d then occupies the contiguous range
-    # [start_d, start_d + count_d) of the sorted order.  Everything below is
-    # sorts, searchsorteds and gathers - NO scatters (TPU scatters measured
-    # ~45 ns/element vs ~4 ns for gathers, PLAN.md round-2 profile).
+    # [start_d, start_d + count_d) of the sorted order.
     order = jnp.argsort(target, stable=True)
     sorted_target = target[order]
     shard_ids = jnp.arange(n_shards, dtype=target.dtype)

@@ -160,13 +160,11 @@ def test_doub_element_hermitian(systems):
 def test_matmul_precision_guard(systems):
     """The package must pin jax_default_matmul_precision to HIGHEST.
 
-    On TPU the DEFAULT lowering truncates f32 matmul operands to one bf16
-    pass, which broke every "error-free" one-hot/integer-split kernel in
-    kernels.py: measured 2026-08-17 on v5e, diag_matrel was wrong by ~1 mHa
-    with *batch-shape-dependent* values (XLA picks the truncating MXU
-    lowering only for some shapes).  This guards the config and the
-    batch-vs-single consistency it restores (trivially true on CPU, real
-    on TPU).
+    Under the DEFAULT precision an accelerator may run f32 products in a
+    reduced-mantissa mode (TF32 on a GPU), and XLA may choose that lowering
+    for some batch shapes only: diag_matrel then comes out wrong by ~1 mHa,
+    with values that depend on the batch shape.  This guards the config and
+    the batch-vs-single consistency it keeps (trivially true on CPU).
     """
     assert jax.config.jax_default_matmul_precision == "highest"
     ham, dense_h, basis = systems[1]

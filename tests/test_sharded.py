@@ -199,7 +199,7 @@ def test_sharded_observables_matches_single(ham):
 
 # ---------------------------------------------------------------------------
 # exchange-path tests: ragged collective vs dense fallback, and a
-# production-shape accumulate equivalence (VERDICT round-3 item 6)
+# production-shape accumulate equivalence
 # ---------------------------------------------------------------------------
 
 

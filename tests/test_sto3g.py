@@ -3,7 +3,7 @@
 H2 at R=1.4 bohr reproduces the textbook FCI total energy -1.13728 Ha
 (Szabo & Ostlund Table 3.15) from our own Gaussian integrals - the one
 literature-anchored real molecule the reference's Benchmarks assume but
-do not ship integrals for (VERDICT round 2, missing item 1)."""
+do not ship integrals for."""
 
 import os
 

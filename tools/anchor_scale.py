@@ -1,4 +1,4 @@
-"""Production-scale accuracy anchor (VERDICT round-2 next-round item 4).
+"""Production-scale accuracy anchor.
 
 A 12-orbital / 6-electron synthetic system spans C(12,3)^2 = 48 400
 determinants - far past the dense-FCI cross-checks in tests/ (<= 3 136
@@ -12,11 +12,11 @@ statistical grounds.
 
 Matches the role of the reference's Benchmarks/calc_stats.py exact anchors
 (Ne/N2 FCI energies, calc_stats.py:7-10) that its shipped Input_Data cannot
-reproduce (no eris.txt); run on the TPU:
+reproduce (no eris.txt); run on a GPU:
 
     python tools/anchor_scale.py --iters 12000
 
-Results are recorded in PLAN.md / PARITY.md.
+Results are recorded in PARITY.md.
 """
 
 from __future__ import annotations
@@ -124,11 +124,8 @@ def main():
     ap.add_argument("--capacity", type=int, default=1 << 17)
     ap.add_argument("--eps", type=float, default=0.02)
     ap.add_argument("--scan", type=int, default=25,
-                    help="iterations per on-device scan: long scan programs "
-                         "(1000) kernel-fault the v5e worker (same "
-                         "length-dependent miscompile as fciqmc scan(20), "
-                         "PLAN.md round-3 session-2), so blocks run as "
-                         "chained short scans")
+                    help="iterations per on-device scan; blocks run as "
+                         "chained scans of this length")
     ap.add_argument("--e0", type=float, default=None,
                     help="skip Lanczos, use this exact ground-state energy "
                          "(must match n_orb/n_elec/seed; forces trial_k=0)")

@@ -1,5 +1,5 @@
 """Re-run the reference C++ single-rank baseline on the REAL N2/cc-pVDZ
-integrals (bench.py's frisys rung measures the same system on TPU).
+integrals (bench.py's frisys rung measures the same system on the GPU).
 
 Writes the reference-format HF directory from the in-repo Hamiltonian
 (io.write_hf_dir), runs the rebuilt frisys_mol (/tmp/friesref/build,

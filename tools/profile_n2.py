@@ -1,5 +1,4 @@
-"""Profile the real-N2 flagship step (VERDICT r4 weak #7: 2.58 s/iter vs
-0.696 s synthetic bench - a 3.7x unexplained real-system overhead).
+"""Profile the real-N2 flagship step against the synthetic bench system.
 
 Times (a) the full step at the flagship config, (b) the estimator lookup
 (H|trial> num_keys into the arena) in isolation, (c) the step with a
