@@ -13,8 +13,9 @@ Runs the system's main path once on the card and checks what comes out:
      determinants, through ``fries_tpu.cli.main``.
 
 With ``--four-gpus`` it runs the hash-sharded path on four GPUs instead,
-and nothing else: frifull build_sharded vs build, ragged vs dense spawn
-exchange, and frisys_mol --n_chips 4 on N2 at 1e6 kept determinants per GPU.
+and nothing else: frifull build_sharded vs build, the spawn exchange against
+numpy over repeated runs, and frisys_mol --n_chips 4 on N2 at 1e6 kept
+determinants per GPU.
 
 Usage (from the checkout root):
     python chip_smoke.py [--seed N]
@@ -489,7 +490,11 @@ def phase_flagship(fcidump, iters: int, card: str, vec_nonz=1_000_000,
 # phase 5 (--four-gpus): the hash-sharded path
 # ---------------------------------------------------------------------------
 
-def phase_sharded_exact(devs, card: str, n_iter: int = 30) -> None:
+def phase_sharded_exact(devs, card: str, blocks: int = 3,
+                        block_iters: int = 10) -> None:
+    """frifull build_sharded on the mesh against build on one GPU, run as
+    ``blocks`` calls of one compiled program each, so a fault that shows
+    only on a program's repeated execution fails the check."""
     import numpy as np
     import jax
     import jax.numpy as jnp
@@ -507,40 +512,46 @@ def phase_sharded_exact(devs, card: str, n_iter: int = 30) -> None:
     ham = mol.MolecularHamiltonian(
         hcore=jnp.asarray(h), eris=jnp.asarray(eris),
         symm=jnp.zeros(5, jnp.int32), n_orb=5, n_elec=4)
+
+    def blocked(run, st, aux):
+        trs = []
+        for _ in range(blocks):
+            st, tr = run(st, aux["num_keys"], aux["num_vals"],
+                         aux["den_keys"], aux["den_vals"], aux["ref_key"],
+                         block_iters)
+            trs.append({k: np.asarray(tr[k]) for k in
+                        ("proj_num", "proj_den", "norm", "overflow")})
+        return {k: np.concatenate([t[k] for t in trs]) for k in trs[0]}
+
     cfg1 = power.PowerConfig(eps=0.05, target_nonz=256, capacity=128)
     with jax.default_device(devs[0]):
         _, run1, st1, aux1 = frifull.build(ham, cfg1, seed=0)
-        st1, tr1 = run1(st1, aux1["num_keys"], aux1["num_vals"],
-                        aux1["den_keys"], aux1["den_vals"], aux1["ref_key"],
-                        n_iter)
+        tr1 = blocked(run1, st1, aux1)
     mesh = Mesh(np.asarray(devs), (parallel.AXIS,))
     cfgn = power.PowerConfig(
         eps=0.05, target_nonz=256, capacity=64, axis_name=parallel.AXIS,
         n_shards=n, exchange_cap=512)
     _, runn, stn, auxn = frifull.build_sharded(ham, cfgn, seed=0, mesh=mesh)
-    stn, trn = runn(stn, auxn["num_keys"], auxn["num_vals"],
-                    auxn["den_keys"], auxn["den_vals"], auxn["ref_key"],
-                    n_iter)
-    e1 = np.asarray(tr1["proj_num"]) / np.asarray(tr1["proj_den"])
-    en = np.asarray(trn["proj_num"]) / np.asarray(trn["proj_den"])
+    trn = blocked(runn, stn, auxn)
+    e1 = tr1["proj_num"] / tr1["proj_den"]
+    en = trn["proj_num"] / trn["proj_den"]
     # |d| <= 1e-9 |e| + 1e-11: the estimator starts at exactly 0
     rel = np.max(np.abs(en - e1) / (np.abs(e1) + 1e-2))
     e_ok = bool(np.all(np.abs(en - e1) <= 1e-9 * np.abs(e1) + 1e-11))
-    nrel = np.max(np.abs(np.asarray(trn["norm"]) / np.asarray(tr1["norm"])
-                         - 1))
-    ok = (e_ok and nrel <= 1e-9
-          and not bool(np.asarray(tr1["overflow"]).any())
-          and not bool(np.asarray(trn["overflow"]).any()))
+    nrel = np.max(np.abs(trn["norm"] / tr1["norm"] - 1))
+    ok = (e_ok and nrel <= 1e-9 and not tr1["overflow"].any()
+          and not trn["overflow"].any())
     check(ok, f"frifull build_sharded on {n} GPUs vs build on 1 GPU, "
-          f"{n_iter} iters: energy max |d|/(|e|+1e-2) {rel:.2e} (rtol 1e-9, "
-          f"atol 1e-11), norm max rel {nrel:.2e} (rtol 1e-9); f64 [{card}]")
+          f"{blocks} runs x {block_iters} iters of one compiled program: "
+          f"energy max |d|/(|e|+1e-2) {rel:.2e} (rtol 1e-9, atol 1e-11), "
+          f"norm max rel {nrel:.2e} (rtol 1e-9); f64 [{card}]")
 
 
-def phase_exchange(devs, card: str, s_local: int = 100_000,
+def phase_exchange(devs, card: str, seed: int, s_local: int = 100_000,
                    per_pair_cap: int = 40_000, runs: int = 3) -> None:
-    """Ragged vs dense spawn exchange at the production shape, each run
-    ``runs`` times as one compiled program, every run checked against a
-    single global accumulation of the same rows."""
+    """The spawn exchange at the production shape, one compiled program run
+    ``runs`` times on fresh inputs, every run checked against a global
+    accumulation of its own rows in numpy."""
     import numpy as np
     import jax
     import jax.numpy as jnp
@@ -550,31 +561,29 @@ def phase_exchange(devs, card: str, s_local: int = 100_000,
 
     n = len(devs)
     mesh = Mesh(np.asarray(devs), (parallel.AXIS,))
-    rng = np.random.default_rng(3)
-    words = np.zeros((n, s_local, 2), np.uint32)
-    words[..., 0] = rng.integers(0, 1 << 24, size=(n, s_local))
-    amps = rng.standard_normal((n, s_local))
-    uq, inv = np.unique(words[..., 0].ravel().astype(np.int64),
-                        return_inverse=True)
-    ref = np.bincount(inv, amps.ravel())
-    owner = np.asarray(sh.shard_of_words(
-        jnp.asarray(np.stack([uq.astype(np.uint32),
-                              np.zeros_like(uq, np.uint32)], 1)), n))
+    rng = np.random.default_rng(seed + 3)
 
-    def compiled(fn, cap):
-        def body(k, a):
-            k, a = k[0], a[0]
-            tgt = sh.shard_of_words(k, n)
-            rec, ovf = fn({"keys": k, "amps": a}, tgt, n, cap, parallel.AXIS)
-            return (rec["keys"][None], rec["amps"][None],
-                    ovf.astype(jnp.int32)[None])
-        return jax.jit(jax.shard_map(
-            body, mesh=mesh, in_specs=(P(parallel.AXIS), P(parallel.AXIS)),
-            out_specs=(P(parallel.AXIS),) * 3))
+    def body(k, a):
+        k, a = k[0], a[0]
+        tgt = sh.shard_of_words(k, n)
+        rec, ovf = sh.exchange({"keys": k, "amps": a}, tgt, n, per_pair_cap,
+                               parallel.AXIS)
+        return (rec["keys"][None], rec["amps"][None],
+                ovf.astype(jnp.int32)[None])
 
-    def wrong_rows(rk, ra, ovf):
+    f = jax.jit(jax.shard_map(
+        body, mesh=mesh, in_specs=(P(parallel.AXIS), P(parallel.AXIS)),
+        out_specs=(P(parallel.AXIS),) * 3))
+
+    def wrong_rows(words, amps, rk, ra, ovf):
         """Keys missing from, or foreign to, each shard's received rows, or
         sums off by more than 1e-12; plus the overflow flag."""
+        uq, inv = np.unique(words[..., 0].ravel().astype(np.int64),
+                            return_inverse=True)
+        ref = np.bincount(inv, amps.ravel())
+        owner = np.asarray(sh.shard_of_words(
+            jnp.asarray(np.stack([uq.astype(np.uint32),
+                                  np.zeros_like(uq, np.uint32)], 1)), n))
         rk, ra = np.asarray(rk), np.asarray(ra)
         bad = int(np.asarray(ovf).any())
         for s in range(n):
@@ -583,32 +592,31 @@ def phase_exchange(devs, card: str, s_local: int = 100_000,
                                        return_inverse=True)
             got = np.bincount(got_inv, ra[s][valid])
             mine = uq[owner == s]
-            same = got_k.shape == mine.shape and np.array_equal(got_k, mine)
-            if not same:
+            if not (got_k.shape == mine.shape
+                    and np.array_equal(got_k, mine)):
                 bad += len(np.setxor1d(got_k, mine))
                 continue
             bad += int(np.sum(np.abs(got - ref[owner == s]) > 1e-12))
         return bad
 
-    x = (jnp.asarray(words), jnp.asarray(amps))
-    results = {}
-    for name, fn, cap in (("ragged", sh.exchange_ragged, n * per_pair_cap),
-                          ("dense", sh.exchange_dense, per_pair_cap)):
-        f = compiled(fn, cap)
-        bad, secs = [], []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            out = jax.block_until_ready(f(*x))
-            secs.append(time.perf_counter() - t0)
-            bad.append(wrong_rows(*out))
-        results[name] = bad
-        log(f"  info {name} exchange: wrong keys or sums per run {bad}, "
-            f"run times {[round(t * 1e3, 2) for t in secs]} ms (the first "
-            f"includes compilation) [{card}]")
-    ok = all(b == 0 for r in results.values() for b in r)
-    check(ok, f"exchange_ragged and exchange_dense on {n} GPUs, {s_local} "
-          f"rows/GPU, {runs} runs each: every key on its owner exactly once, "
-          f"sums within 1e-12 of numpy (f64) [{card}]")
+    bad, secs = [], []
+    for _ in range(runs):
+        words = np.zeros((n, s_local, 2), np.uint32)
+        words[..., 0] = rng.integers(0, 1 << 24, size=(n, s_local))
+        amps = rng.standard_normal((n, s_local))
+        x = (jnp.asarray(words), jnp.asarray(amps))
+        t0 = time.perf_counter()
+        out = jax.block_until_ready(f(*x))
+        secs.append(time.perf_counter() - t0)
+        bad.append(wrong_rows(words, amps, *out))
+    log(f"  info exchange: wrong keys or sums per run {bad}, run times "
+        f"{[round(t * 1e3, 2) for t in secs]} ms (the first includes "
+        f"compilation) [{card}]")
+    check(all(b == 0 for b in bad),
+          f"shard.exchange (bucketed all_to_all) on {n} GPUs, {s_local} "
+          f"rows/GPU, {runs} runs of one compiled program on fresh inputs: "
+          f"every key on its owner exactly once, sums within 1e-12 of numpy "
+          f"(f64) [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -651,7 +659,7 @@ def main(argv=None) -> int:
         devs = devs[:4]
         run_phase("sharded exact frifull", phase_sharded_exact, devs, card,
                   failures=failures)
-        run_phase("spawn exchange", phase_exchange, devs, card,
+        run_phase("spawn exchange", phase_exchange, devs, card, args.seed,
                   failures=failures)
         fcidump = run_phase("N2 FCIDUMP", n2_fcidump, failures=failures)
         if fcidump:

@@ -5,8 +5,8 @@ Replacement for the reference's MPI layer (SURVEY.md section 5.8):
 * rank assignment by hash (DistVec::idx_to_proc, vec_utils.hpp:360-379)
   becomes an FNV-1a hash of the determinant key words modulo the mesh size;
 * the Adder's MPI_Alltoall/MPI_Alltoallv round trip (vec_utils.hpp:991-1019)
-  becomes a ragged (or fixed-capacity bucketed) all-to-all over the mesh with
-  a psum'd overflow flag instead of flow control;
+  becomes a fixed-capacity bucketed all-to-all over the mesh with a psum'd
+  overflow flag instead of flow control;
 * ``sum_mpi`` reductions are ``lax.psum``; the rank-0 broadcast of shared
   random numbers (compress_utils.cpp:291) is replaced by using the same PRNG
   key on every shard.
@@ -15,8 +15,6 @@ Everything here runs inside ``shard_map`` over a 1-D device mesh.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 import jax
@@ -41,132 +39,26 @@ def shard_of_words(words: jax.Array, n_shards: int, seed: int = 0) -> jax.Array:
     return (h % np.uint32(n_shards)).astype(jnp.int32)
 
 
-import os
-
-_EXCHANGE_MODE = os.environ.get("FRIES_EXCHANGE", "dense")
-
-
 def exchange(arrays: dict, target: jax.Array, n_shards: int,
              per_pair_cap: int, axis_name: str):
     """Route spawn rows to their owning shards.
 
-    The fixed-bucket ``lax.all_to_all`` path (overflows when any single
-    (src, dst) bucket exceeds per_pair_cap) is the default, on GPUs and on
-    the CPU: on four H100s, ``lax.ragged_all_to_all`` returned wrong rows
-    in a repeated production-shape exchange (see PERF.md), and over NVLink
-    the dense buffers cost little.  FRIES_EXCHANGE=ragged selects the
-    ragged-collective path (actual counts on the wire, overflow only if a
-    shard *receives* more than its buffer).
+    Pads every (src, dst) bucket to ``per_pair_cap`` rows and moves the
+    dense buffer with one ``lax.all_to_all``; the psum'd overflow flag is
+    set when any single bucket holds more than ``per_pair_cap`` rows.
+    (``lax.ragged_all_to_all`` would send only the live rows, but on GPUs
+    with JAX 0.9.0 it returned wrong rows on repeated execution; see
+    ROADMAP.md.)
 
     Args:
       arrays: dict of (S, ...) spawn payloads; must contain "keys" (S, W)
         whose sentinel rows mark invalid entries, and "amps".
       target: (S,) destination shard of each row.
-      per_pair_cap: static bucket capacity per destination shard; total
-        receive capacity is n_shards * per_pair_cap in both modes.
+      per_pair_cap: static bucket capacity per destination shard; the
+        receive buffer holds n_shards * per_pair_cap rows.
 
     Returns (received dict of (n_shards*per_pair_cap, ...), overflow bool).
     """
-    if _EXCHANGE_MODE == "ragged":
-        return exchange_ragged(arrays, target, n_shards,
-                               n_shards * per_pair_cap, axis_name)
-    return exchange_dense(arrays, target, n_shards, per_pair_cap, axis_name)
-
-
-def exchange_ragged(arrays: dict, target: jax.Array, n_shards: int,
-                    recv_cap: int, axis_name: str):
-    """Ragged spawn exchange: only live rows travel between devices.
-
-    The device-mesh Adder (vec_utils.hpp:991-1019): rows are sorted by
-    destination so each shard's sends are contiguous runs, per-pair counts
-    are all_gathered (n_shards^2 ints — negligible), and one
-    ``lax.ragged_all_to_all`` moves exactly the live payload.  Received
-    rows land contiguously in [0, recv_total); the tail keeps the sentinel
-    prefill.  Overflow (psum'd) only when a shard receives more than
-    ``recv_cap`` rows — there is no per-(src,dst)-bucket cap at all,
-    unlike the dense fallback."""
-    s = target.shape[0]
-    keys = arrays["keys"]
-    valid = ~dets.is_invalid(keys)
-    target = jnp.where(valid, target, n_shards)
-
-    order = jnp.argsort(target, stable=True)
-    sorted_target = target[order]
-    shard_ids = jnp.arange(n_shards, dtype=target.dtype)
-    start = jnp.searchsorted(sorted_target, shard_ids, side="left",
-                             method="sort").astype(jnp.int32)
-    end = jnp.searchsorted(sorted_target, shard_ids, side="right",
-                           method="sort").astype(jnp.int32)
-    count = end - start
-
-    # (n_shards, n_shards) full count matrix on every shard: row i = what
-    # shard i sends to each destination
-    all_counts = lax.all_gather(count, axis_name)
-    me = lax.axis_index(axis_name)
-    recv_sizes = all_counts[:, me]
-    recv_total = jnp.sum(recv_sizes)
-    overflow = lax.psum((recv_total > recv_cap).astype(jnp.int32),
-                        axis_name) > 0
-    # where my block starts inside each receiver's buffer: senders before
-    # me writing to the same destination
-    below = jnp.where(jnp.arange(n_shards)[:, None] < me, all_counts, 0)
-    output_offsets = jnp.sum(below, axis=0).astype(jnp.int32)
-    # clamp so an overflowing exchange stays in-bounds (the psum'd flag
-    # aborts the run; data correctness no longer matters on that path)
-    output_offsets = jnp.minimum(output_offsets,
-                                 jnp.int32(recv_cap - 1))
-    send_sizes = jnp.minimum(
-        count, jnp.maximum(recv_cap - output_offsets, 0)).astype(jnp.int32)
-
-    # XLA:CPU has no ragged-all-to-all thunk; the emulation reproduces its
-    # exact semantics from an all_gather so the virtual-device test mesh and
-    # the driver's multichip dryrun exercise this same code path
-    collective = (lax.ragged_all_to_all if jax.default_backend() != "cpu"
-                  else _ragged_all_to_all_emulated)
-    received = {}
-    for name, arr in arrays.items():
-        arr_sorted = arr[order]
-        if name == "keys":
-            fill = jnp.asarray(dets.invalid_det(arr.shape[-1]))
-            out_buf = jnp.tile(fill, (recv_cap, 1))
-        else:
-            out_buf = jnp.zeros((recv_cap,) + arr.shape[1:], arr.dtype)
-        received[name] = collective(
-            arr_sorted, out_buf, start, send_sizes, output_offsets,
-            recv_sizes.astype(jnp.int32), axis_name=axis_name)
-    return received, overflow
-
-
-def _ragged_all_to_all_emulated(operand, output, input_offsets, send_sizes,
-                                output_offsets, recv_sizes, *, axis_name):
-    """lax.ragged_all_to_all semantics built from all_gather (CPU backend).
-
-    Sender j's rows [input_offsets[d], +send_sizes[d]) land at
-    [output_offsets_of_j[d], ...) in destination d's output buffer."""
-    all_op = lax.all_gather(operand, axis_name)           # (n, S, ...)
-    all_in = lax.all_gather(input_offsets, axis_name)     # (n, n)
-    all_sz = lax.all_gather(send_sizes, axis_name)
-    all_out = lax.all_gather(output_offsets, axis_name)
-    me = lax.axis_index(axis_name)
-    n = all_op.shape[0]
-    out = output
-    idx = jnp.arange(out.shape[0])
-    for i in range(n):
-        sz = all_sz[i, me]
-        src0 = all_in[i, me]
-        dst0 = all_out[i, me]
-        take = jnp.clip(idx - dst0 + src0, 0, all_op.shape[1] - 1)
-        within = (idx >= dst0) & (idx < dst0 + sz)
-        rows = all_op[i][take]
-        out = jnp.where(within.reshape((-1,) + (1,) * (out.ndim - 1)),
-                        rows, out)
-    return out
-
-
-def exchange_dense(arrays: dict, target: jax.Array, n_shards: int,
-                   per_pair_cap: int, axis_name: str):
-    """Fixed-bucket exchange: pads every (src, dst) bucket to
-    ``per_pair_cap`` and moves the dense buffer with ``lax.all_to_all``."""
     s = target.shape[0]
     keys = arrays["keys"]
     valid = ~dets.is_invalid(keys)

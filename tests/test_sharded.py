@@ -198,36 +198,58 @@ def test_sharded_observables_matches_single(ham):
 
 
 # ---------------------------------------------------------------------------
-# exchange-path tests: ragged collective vs dense fallback, and a
+# exchange-path tests: the bucketed all-to-all against a host reference,
+# repeated executions of one compiled exchange, the overflow flag, and a
 # production-shape accumulate equivalence
 # ---------------------------------------------------------------------------
 
 
-def _run_exchange(mode, keys, amps, n_shards, per_pair_cap):
-    """Drive shard.exchange inside shard_map on the virtual mesh; rows are
-    pre-bucketed per source shard as (n_shards, S_local, ...)."""
-    from functools import partial
+def _compiled_exchange(n_shards, per_pair_cap):
+    """shard.exchange inside shard_map on the virtual mesh, jitted once;
+    rows are pre-bucketed per source shard as (n_shards, S_local, ...)."""
     from jax.sharding import PartitionSpec as P
     from fries_tpu.runtime import shard as sh
 
     mesh = parallel.make_mesh(n_shards)
 
-    fn = {"ragged": sh.exchange_ragged, "dense": sh.exchange_dense}[mode]
-    cap = per_pair_cap * n_shards if mode == "ragged" else per_pair_cap
-
     def body(k, a):
         k, a = k[0], a[0]
         tgt = sh.shard_of_words(k, n_shards)
-        rec, ovf = fn({"keys": k, "amps": a}, tgt, n_shards, cap,
-                      parallel.AXIS)
+        rec, ovf = sh.exchange({"keys": k, "amps": a}, tgt, n_shards,
+                               per_pair_cap, parallel.AXIS)
         return (rec["keys"][None], rec["amps"][None],
                 ovf.astype(jnp.int32)[None])
 
     smapped = jax.jit(jax.shard_map(
         body, mesh=mesh, in_specs=(P(parallel.AXIS), P(parallel.AXIS)),
         out_specs=(P(parallel.AXIS), P(parallel.AXIS), P(parallel.AXIS))))
-    rk, ra, ovf = smapped(keys, amps)
-    return np.asarray(rk), np.asarray(ra), bool(np.asarray(ovf).any())
+
+    def run(keys, amps):
+        rk, ra, ovf = smapped(keys, amps)
+        return np.asarray(rk), np.asarray(ra), bool(np.asarray(ovf).any())
+    return run
+
+
+def _run_exchange(keys, amps, n_shards, per_pair_cap):
+    return _compiled_exchange(n_shards, per_pair_cap)(keys, amps)
+
+
+def _reference_exchange(keys, amps, n_shards):
+    """Host reference: every live row summed into the shard its hash owns,
+    as {shard: {key tuple: amp sum}}."""
+    from fries_tpu import dets as d
+
+    flat_k = keys.reshape(-1, keys.shape[-1])
+    flat_a = amps.reshape(-1)
+    live = ~np.asarray(d.is_invalid(jnp.asarray(flat_k)))
+    owner = np.asarray(sh_targets(jnp.asarray(flat_k), n_shards))
+    out = {s: {} for s in range(n_shards)}
+    for row in np.where(live)[0]:
+        key = tuple(int(x) for x in flat_k[row])
+        bucket = out[int(owner[row])]
+        bucket[key] = bucket.get(key, 0.0) + float(flat_a[row])
+    return {s: {k: v for k, v in b.items() if v != 0.0}
+            for s, b in out.items()}
 
 
 def _merge_received(rk, ra, n_orb=12):
@@ -243,29 +265,67 @@ def _merge_received(rk, ra, n_orb=12):
     return {k: v for k, v in out.items() if v != 0.0}
 
 
-def test_ragged_exchange_matches_dense():
-    rng = np.random.default_rng(7)
-    n_shards, s_local, w = 8, 256, 2
+def _sparse_exchange_case(seed, n_shards=8, s_local=256, w=2):
+    """Random 2-word keys with ~20% sentinel rows, (n_shards, s_local)."""
+    from fries_tpu import dets as d
+
+    rng = np.random.default_rng(seed)
     keys = rng.integers(0, 1 << 20, size=(n_shards, s_local, w)).astype(
         np.uint32)
-    # mark ~20% invalid (sentinel)
-    from fries_tpu import dets as d
-    sent = np.asarray(d.invalid_det(w))
     inv = rng.random((n_shards, s_local)) < 0.2
-    keys[inv] = sent
+    keys[inv] = np.asarray(d.invalid_det(w))
     amps = rng.standard_normal((n_shards, s_local))
     amps[inv] = 0.0
-
-    rk_d, ra_d, ovf_d = _run_exchange("dense", jnp.asarray(keys),
-                                      jnp.asarray(amps), n_shards, 128)
-    rk_r, ra_r, ovf_r = _run_exchange("ragged", jnp.asarray(keys),
-                                      jnp.asarray(amps), n_shards, 128)
-    assert not ovf_d and not ovf_r
-    assert _merge_received(rk_d, ra_d) == _merge_received(rk_r, ra_r)
+    return keys, amps
 
 
-def test_ragged_exchange_production_shape():
-    """~100k rows/shard through the ragged collective on the 8-device
+def _per_shard(rk, ra):
+    return {s: _merge_received(rk[s:s + 1], ra[s:s + 1])
+            for s in range(rk.shape[0])}
+
+
+def test_exchange_matches_reference():
+    n_shards = 8
+    keys, amps = _sparse_exchange_case(7, n_shards)
+    rk, ra, ovf = _run_exchange(jnp.asarray(keys), jnp.asarray(amps),
+                                n_shards, 128)
+    assert not ovf
+    want = _reference_exchange(keys, amps, n_shards)
+    got = _per_shard(rk, ra)
+    for s in range(n_shards):
+        assert set(got[s]) == set(want[s])
+        for k, v in want[s].items():
+            assert abs(got[s][k] - v) <= 1e-12 * max(1.0, abs(v))
+
+
+def test_exchange_repeated_execution():
+    """One compiled exchange run several times on fresh inputs: every run
+    must deliver the rows of its own input (a collective that is right only
+    on its first execution fails here)."""
+    n_shards = 8
+    run = _compiled_exchange(n_shards, 128)
+    for seed in (11, 12, 13):
+        keys, amps = _sparse_exchange_case(seed, n_shards)
+        rk, ra, ovf = run(jnp.asarray(keys), jnp.asarray(amps))
+        assert not ovf
+        assert _per_shard(rk, ra) == {
+            s: {k: pytest.approx(v, rel=1e-12) for k, v in b.items()}
+            for s, b in _reference_exchange(keys, amps, n_shards).items()}
+
+
+def test_exchange_flags_bucket_overflow():
+    """A (src, dst) bucket above per_pair_cap raises the psum'd flag on
+    every shard."""
+    n_shards = 8
+    keys, amps = _sparse_exchange_case(7, n_shards)
+    # 256 rows per source spread over 8 owners: ~26 live rows a bucket
+    _, _, ovf = _run_exchange(jnp.asarray(keys), jnp.asarray(amps),
+                              n_shards, 8)
+    assert ovf
+
+
+def test_exchange_production_shape():
+    """~100k rows/shard through the bucketed all-to-all on the 8-device
     mesh, validated against a single-arena accumulate of the same rows
     (the bucket build and exchange actually stride at this size)."""
     from fries_tpu import dets as d
@@ -281,7 +341,7 @@ def test_ragged_exchange_production_shape():
     amps = rng.standard_normal(n_shards * s_local)
 
     rk, ra, ovf = _run_exchange(
-        "ragged", jnp.asarray(words.reshape(n_shards, s_local, w)),
+        jnp.asarray(words.reshape(n_shards, s_local, w)),
         jnp.asarray(amps.reshape(n_shards, s_local)), n_shards, 40_000)
     assert not ovf
 
@@ -314,6 +374,6 @@ def test_ragged_exchange_production_shape():
     np.testing.assert_allclose(got, ref_sums, rtol=1e-12, atol=1e-12)
 
 
-def sh_targets(k):
+def sh_targets(k, n_shards=8):
     from fries_tpu.runtime import shard as sh
-    return sh.shard_of_words(k, 8)
+    return sh.shard_of_words(k, n_shards)
